@@ -3,7 +3,7 @@ compiled-graph stack: synthetic token stream -> TokenDataset batches ->
 TrainGraph (adamw + warmup-cosine, AMP, grad accumulation).
 
 Mirrors the reference's BERT throughput workload
-(ci/test/1node_benchmark_test.sh) on top of of_spmm_tpu.
+(ci/test/1node_benchmark_test.sh) on top of of_spmm.
 
     python examples/train_bert.py --cpu [--steps 20] [--amp]
 """
@@ -39,11 +39,11 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from of_spmm_tpu import nn, optim
-    from of_spmm_tpu.graph import GraphConfig, TrainGraph
-    from of_spmm_tpu.optim import lr_scheduler
+    from of_spmm import nn, optim
+    from of_spmm.graph import GraphConfig, TrainGraph
+    from of_spmm.optim import lr_scheduler
 
-    from of_spmm_tpu.models import TransformerEncoder
+    from of_spmm.models import TransformerEncoder
 
     model = TransformerEncoder(
         vocab_size=args.vocab, max_len=args.seq, embed_dim=128, num_heads=4,

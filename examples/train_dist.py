@@ -1,7 +1,7 @@
 """Distributed full-batch GCN training over a device mesh (halo-exchange
 SpMM inside shard_map, replicated params, row-sharded activations).
 
-Runs anywhere: on a multi-chip TPU slice it uses the real devices; on CPU
+Runs anywhere: on a multi-GPU host it uses the real devices; on CPU
 it simulates a mesh (--devices N sets jax_num_cpu_devices before first
 device use).
 
@@ -36,12 +36,12 @@ def main():
     import numpy as np
     from jax.sharding import Mesh
 
-    from of_spmm_tpu import distributed as dist
-    from of_spmm_tpu.data import load_graph, random_features
-    from of_spmm_tpu.models import GCN, normalized_adjacency
-    from of_spmm_tpu.parallel import partition_rows
-    from of_spmm_tpu.parallel.consistency import check_consistent
-    from of_spmm_tpu.train import make_dist_train_step
+    from of_spmm import distributed as dist
+    from of_spmm.data import load_graph, random_features
+    from of_spmm.models import GCN, normalized_adjacency
+    from of_spmm.parallel import partition_rows
+    from of_spmm.parallel.consistency import check_consistent
+    from of_spmm.train import make_dist_train_step
 
     dist.initialize()
     devs = jax.devices()

@@ -1,6 +1,7 @@
 """End-to-end GCN training on Cora through the full framework stack:
 graph load -> operator plan -> TrainGraph (adam + cosine schedule +
-grad clipping) -> accuracy eval.
+grad clipping) -> accuracy eval. Runs on the default backend (the GPU
+where there is one; --cpu forces the CPU).
 
     python examples/train_gcn.py [--graph cora] [--epochs 100] [--amp]
 """
@@ -19,11 +20,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from of_spmm_tpu import nn, optim
-from of_spmm_tpu.data import load_graph, random_features
-from of_spmm_tpu.graph import GraphConfig, TrainGraph
-from of_spmm_tpu.models import GCN, normalized_adjacency
-from of_spmm_tpu.ops import make_operator
+from of_spmm import nn, optim
+from of_spmm.data import load_graph, random_features
+from of_spmm.graph import GraphConfig, TrainGraph
+from of_spmm.models import GCN, normalized_adjacency
+from of_spmm.ops import make_operator
+from of_spmm.utils.config import enable_compile_cache
 
 
 def main():
@@ -37,6 +39,7 @@ def main():
     args = ap.parse_args()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    enable_compile_cache()
 
     csr, cfg = load_graph(args.graph, symmetrize=True)
     op = make_operator(normalized_adjacency(csr))
@@ -50,18 +53,21 @@ def main():
     schedule = optim.lr_scheduler.warmup(
         optim.lr_scheduler.cosine_annealing(args.lr, t_max=args.epochs), 10
     )
+    # the operator is a step ARGUMENT: closing over it would bake the plan
+    # arrays into the compiled program as literals
     graph = TrainGraph(
-        lambda p, xx, yy: model.loss_fn(p, op, xx, yy, impl="xla"),
+        lambda p, o, xx, yy: model.loss_fn(p, o, xx, yy),
         optim.adam(lr=schedule),
         params,
         config=GraphConfig(amp=args.amp, clip_grad_norm=5.0),
     )
 
+    apply = jax.jit(model.apply)
     t0 = time.time()
     for epoch in range(args.epochs):
-        metrics = graph(x, y)
+        metrics = graph(op, x, y)
         if epoch % 10 == 0 or epoch == args.epochs - 1:
-            logits = model.apply(graph.params, op, x, impl="xla")
+            logits = apply(graph.params, op, x)
             acc = float(jnp.mean((jnp.argmax(logits, -1) == y)))
             print(
                 f"epoch {epoch:4d}  loss {float(metrics['loss']):.4f}  "

@@ -4,8 +4,8 @@ import math
 
 import pytest
 
-from of_spmm_tpu.ops.registry import lookup
-from of_spmm_tpu.parallel.auto_sharding import (
+from of_spmm.ops.registry import lookup
+from of_spmm.parallel.auto_sharding import (
     ChainStep,
     boxing_cost,
     choose_signature,

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from of_spmm_tpu.ops import autograd as ag
-from of_spmm_tpu.sparse.formats import CSR
+from of_spmm.ops import autograd as ag
+from of_spmm.sparse.formats import CSR
 from tests.conftest import ATOL, RTOL
 
 

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from of_spmm_tpu.utils.checkpoint import (
+from of_spmm.utils.checkpoint import (
     load_checkpoint,
     load_sharded,
     save_checkpoint,

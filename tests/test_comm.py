@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh, PartitionSpec as P
 
-from of_spmm_tpu import comm
-from of_spmm_tpu.parallel import (
+from of_spmm import comm
+from of_spmm.parallel import (
     materialize_partial,
     reshard,
     sbp_of,

@@ -12,8 +12,8 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from of_spmm_tpu import comm
-from of_spmm_tpu.parallel import to_global
+from of_spmm import comm
+from of_spmm.parallel import to_global
 
 
 def _shard_map(f, mesh, in_specs=P("x"), out_specs=P("x")):

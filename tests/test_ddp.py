@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from of_spmm_tpu import nn, optim
-from of_spmm_tpu.parallel.ddp import (
+from of_spmm import nn, optim
+from of_spmm.parallel.ddp import (
     allreduce_gradients,
     broadcast_params,
     ddp_train_step,

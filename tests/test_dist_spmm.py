@@ -11,9 +11,9 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from of_spmm_tpu.parallel.dist_spmm import dist_spmm, dist_spmm_allgather
-from of_spmm_tpu.parallel.partition import partition_rows
-from of_spmm_tpu.sparse.formats import CSR
+from of_spmm.parallel.dist_spmm import dist_spmm, dist_spmm_allgather
+from of_spmm.parallel.partition import partition_rows
+from of_spmm.sparse.formats import CSR
 from tests.conftest import ATOL, RTOL
 
 
@@ -102,9 +102,9 @@ def test_dist_spmm_split_boundary_matches(mesh8):
     import jax.numpy as jnp
     import numpy as np
 
-    from of_spmm_tpu.parallel.dist_spmm import dist_spmm
-    from of_spmm_tpu.parallel.partition import partition_rows
-    from of_spmm_tpu.sparse.formats import CSR
+    from of_spmm.parallel.dist_spmm import dist_spmm
+    from of_spmm.parallel.partition import partition_rows
+    from of_spmm.sparse.formats import CSR
 
     rng = np.random.default_rng(7)
     n = 96
@@ -293,7 +293,7 @@ def test_dist_spmm_ragged_pallas_grad():
 
 
 def _normalized_dense(n, density, seed=0):
-    """Sym-normalized binary adjacency (rank-1 values — panel engine)."""
+    """Sym-normalized binary adjacency."""
     rng = np.random.default_rng(seed)
     dense = (rng.random((n, n)) < density).astype(np.float32)
     dr = dense.sum(1)
@@ -304,100 +304,9 @@ def _normalized_dense(n, density, seed=0):
     return dense * r[:, None] * c[None, :]
 
 
-@pytest.mark.parametrize("n_shards", [2, 4, 8])
-def test_dist_spmm_panels_matches_dense(n_shards):
-    """The r4 panel engine inside the shard_map body (VERDICT r3 item 2):
-    per-shard PanelPlans over [own X | halo] match the dense oracle."""
-    n, d = 640, 16
-    dense = _normalized_dense(n, 0.05, seed=n_shards)
-    plan = partition_rows(CSR.from_dense(dense), n_shards,
-                          local_engine="panels")
-    x = np.random.default_rng(1).standard_normal((n, d)).astype(np.float32)
-    with _mesh(n_shards) as mesh:
-        y = dist_spmm(plan, jnp.asarray(x), mesh, impl="panels")
-    np.testing.assert_allclose(np.asarray(y), dense @ x, rtol=RTOL,
-                               atol=1e-3)
-
-
-def test_dist_spmm_panels_ragged_and_grad():
-    """Panels local engine + ragged per-offset halo + gradient through
-    the transpose panel plan."""
-    n, d, S = 512, 8, 4
-    dense = _normalized_dense(n, 0.06, seed=11)
-    plan = partition_rows(CSR.from_dense(dense), S, ragged=True,
-                          local_engine="panels")
-    x = jnp.asarray(
-        np.random.default_rng(3).standard_normal((n, d)).astype(np.float32))
-    w = jnp.asarray(
-        np.random.default_rng(4).standard_normal((n, d)).astype(np.float32))
-    with _mesh(S) as mesh:
-        y = dist_spmm(plan, x, mesh, impl="panels")
-        g = jax.grad(
-            lambda xx: jnp.sum(dist_spmm(plan, xx, mesh,
-                                         impl="panels") * w))(x)
-    np.testing.assert_allclose(np.asarray(y), dense @ np.asarray(x),
-                               rtol=RTOL, atol=1e-3)
-    np.testing.assert_allclose(np.asarray(g), dense.T @ np.asarray(w),
-                               rtol=RTOL, atol=1e-3)
-
-
-def test_dist_spmm_panels_requires_plan():
-    n = 64
-    dense = _normalized_dense(n, 0.1, seed=13)
-    plan = partition_rows(CSR.from_dense(dense), 2)
-    with _mesh(2) as mesh:
-        with pytest.raises(ValueError, match="local_engine"):
-            dist_spmm(plan, jnp.zeros((n, 4), jnp.float32), mesh,
-                      impl="panels")
-
-
-@pytest.mark.parametrize("hubs", [0, 32])
-def test_dist_spmm_panels_split_overlap_body(hubs):
-    """r5 split body (VERDICT r4 item 3): interior panel plan over
-    [own X | hub] + boundary plan over [own | halo | hub], forward and
-    gradient vs the dense oracle. hubs=32 also covers the panels hub
-    remap (cl tail + hub slab concat) that r4 left untested (ADVICE)."""
-    n, d, S = 512, 8, 4
-    dense = _normalized_dense(n, 0.06, seed=17)
-    plan = partition_rows(CSR.from_dense(dense), S, ragged=True,
-                          split_boundary=True, replicate_hubs=hubs,
-                          local_engine="panels")
-    assert plan.panel_int is not None and plan.split
-    assert plan.n_hubs == hubs
-    x = jnp.asarray(
-        np.random.default_rng(5).standard_normal((n, d)).astype(np.float32))
-    w = jnp.asarray(
-        np.random.default_rng(6).standard_normal((n, d)).astype(np.float32))
-    with _mesh(S) as mesh:
-        y = dist_spmm(plan, x, mesh, impl="panels")
-        g = jax.grad(
-            lambda xx: jnp.sum(dist_spmm(plan, xx, mesh,
-                                         impl="panels") * w))(x)
-    np.testing.assert_allclose(np.asarray(y), dense @ np.asarray(x),
-                               rtol=RTOL, atol=1e-3)
-    np.testing.assert_allclose(np.asarray(g), dense.T @ np.asarray(w),
-                               rtol=RTOL, atol=1e-3)
-
-
-def test_dist_spmm_panels_split_all_to_all_and_auto_hubs():
-    """Split panels body through the padded all_to_all exchange with
-    replicate_hubs='auto' (hub candidates allowed under the panels
-    split body, unlike the binned one)."""
-    n, d, S = 384, 4, 8
-    dense = _normalized_dense(n, 0.08, seed=19)
-    plan = partition_rows(CSR.from_dense(dense), S, split_boundary=True,
-                          replicate_hubs="auto", local_engine="panels")
-    x = jnp.asarray(
-        np.random.default_rng(7).standard_normal((n, d)).astype(np.float32))
-    with _mesh(S) as mesh:
-        y = dist_spmm(plan, x, mesh, impl="panels")
-    np.testing.assert_allclose(np.asarray(y), dense @ np.asarray(x),
-                               rtol=RTOL, atol=1e-3)
-
-
 def test_dist_spmm_binned_split_hub_guard():
-    """The binned split body still rejects replicated hubs loudly, at
-    plan build (explicit K) and at dispatch (plan smuggled in)."""
+    """The split body rejects replicated hubs loudly, at plan build
+    (explicit K) and at dispatch (plan smuggled in)."""
     n = 128
     dense = _normalized_dense(n, 0.1, seed=23)
     with pytest.raises(ValueError, match="hub"):

@@ -6,8 +6,8 @@ import doctest
 import pytest
 
 MODULES = [
-    "of_spmm_tpu.sparse.formats",
-    "of_spmm_tpu.optim.lr_scheduler",
+    "of_spmm.sparse.formats",
+    "of_spmm.optim.lr_scheduler",
 ]
 
 

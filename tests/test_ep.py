@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from of_spmm_tpu.parallel.ep import MoELayer, expert_capacity, top_k_dispatch
+from of_spmm.parallel.ep import MoELayer, expert_capacity, top_k_dispatch
 
 
 def _mesh(n, name="ep"):

@@ -4,7 +4,7 @@ files asserting that misuse produces clean, typed, actionable errors)."""
 import numpy as np
 import pytest
 
-from of_spmm_tpu.utils.errors import (
+from of_spmm.utils.errors import (
     CapacityError,
     ConfigError,
     OfSpmmError,
@@ -41,7 +41,7 @@ def test_typed_hierarchy_catchable_as_base():
 
 
 def test_unknown_graph_lists_available():
-    from of_spmm_tpu.data.graphs import load_graph
+    from of_spmm.data.graphs import load_graph
 
     with pytest.raises((KeyError, ValueError)) as ei:
         load_graph("not-a-graph")
@@ -49,8 +49,8 @@ def test_unknown_graph_lists_available():
 
 
 def test_spgemm_shape_mismatch():
-    from of_spmm_tpu.ops.reference import spgemm
-    from of_spmm_tpu.sparse.formats import CSR
+    from of_spmm.ops.reference import spgemm
+    from of_spmm.sparse.formats import CSR
 
     a = CSR.from_dense(np.eye(3, dtype=np.float32))
     b = CSR.from_dense(np.eye(4, dtype=np.float32))
@@ -62,7 +62,7 @@ def test_bad_sbp_atom():
     import jax
     from jax.sharding import Mesh
 
-    from of_spmm_tpu.parallel import to_global
+    from of_spmm.parallel import to_global
 
     mesh = Mesh(np.asarray(jax.devices()), ("x",))
     with pytest.raises(ValueError, match="bad SBP atom"):
@@ -73,7 +73,7 @@ def test_sbp_split_axis_out_of_range():
     import jax
     from jax.sharding import Mesh
 
-    from of_spmm_tpu.parallel import to_global
+    from of_spmm.parallel import to_global
 
     mesh = Mesh(np.asarray(jax.devices()), ("x",))
     with pytest.raises(ValueError, match="out of range"):
@@ -84,7 +84,7 @@ def test_partial_not_storable():
     import jax
     from jax.sharding import Mesh
 
-    from of_spmm_tpu.parallel import to_global
+    from of_spmm.parallel import to_global
 
     mesh = Mesh(np.asarray(jax.devices()), ("x",))
     with pytest.raises(ValueError, match="materialize_partial"):
@@ -95,7 +95,7 @@ def test_indivisible_split_suggests_padding():
     import jax
     from jax.sharding import Mesh
 
-    from of_spmm_tpu.parallel import to_global
+    from of_spmm.parallel import to_global
 
     mesh = Mesh(np.asarray(jax.devices()), ("x",))
     with pytest.raises(ValueError, match="pad_to_multiple"):
@@ -103,7 +103,7 @@ def test_indivisible_split_suggests_padding():
 
 
 def test_dropout_requires_rng():
-    from of_spmm_tpu import nn
+    from of_spmm import nn
 
     m = nn.Dropout(0.5)
     with pytest.raises(ValueError, match="rng"):
@@ -111,14 +111,14 @@ def test_dropout_requires_rng():
 
 
 def test_unknown_reduction():
-    from of_spmm_tpu.nn import losses
+    from of_spmm.nn import losses
 
     with pytest.raises(ValueError, match="unknown reduction"):
         losses.mse_loss(np.ones(3), np.ones(3), reduction="avg")
 
 
 def test_embedding_cache_capacity_error(tmp_path):
-    from of_spmm_tpu.embedding import CachedEmbedding, PersistentTable
+    from of_spmm.embedding import CachedEmbedding, PersistentTable
 
     t = PersistentTable(str(tmp_path / "t"), dim=2, capacity=100)
     emb = CachedEmbedding(t, capacity=2)
@@ -128,7 +128,7 @@ def test_embedding_cache_capacity_error(tmp_path):
 
 
 def test_persistent_table_dim_mismatch(tmp_path):
-    from of_spmm_tpu.embedding import PersistentTable
+    from of_spmm.embedding import PersistentTable
 
     PersistentTable(str(tmp_path / "t"), dim=4, capacity=10)
     with pytest.raises(ValueError, match="dim"):
@@ -136,8 +136,8 @@ def test_persistent_table_dim_mismatch(tmp_path):
 
 
 def test_spmm_impl_unknown():
-    from of_spmm_tpu.ops.autograd import make_operator, spmm
-    from of_spmm_tpu.sparse.formats import CSR
+    from of_spmm.ops.autograd import make_operator, spmm
+    from of_spmm.sparse.formats import CSR
 
     op = make_operator(CSR.from_dense(np.eye(4, dtype=np.float32)), place=False)
     with pytest.raises(ValueError, match="auto|xla|pallas"):

@@ -12,8 +12,8 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from of_spmm_tpu.sparse.formats import CSR
-from of_spmm_tpu.utils.errors import (
+from of_spmm.sparse.formats import CSR
+from of_spmm.utils.errors import (
     CapacityError, ConfigError, OfSpmmError, PlacementError, PlanError,
     ShapeError)
 
@@ -30,8 +30,8 @@ def _csr(n=64, density=0.1, seed=0):
 
 
 def test_dist_spmm_wrong_axis_name():
-    from of_spmm_tpu.parallel.dist_spmm import dist_spmm
-    from of_spmm_tpu.parallel.partition import partition_rows
+    from of_spmm.parallel.dist_spmm import dist_spmm
+    from of_spmm.parallel.partition import partition_rows
 
     plan = partition_rows(_csr(), 4)
     x = jnp.ones((64, 8), jnp.float32)
@@ -41,7 +41,7 @@ def test_dist_spmm_wrong_axis_name():
 
 
 def test_partition_refine_rejects_rectangular():
-    from of_spmm_tpu.parallel.partition import partition_rows
+    from of_spmm.parallel.partition import partition_rows
 
     rng = np.random.default_rng(1)
     rect = CSR.from_dense((rng.random((32, 64)) < 0.2).astype(np.float32))
@@ -50,59 +50,33 @@ def test_partition_refine_rejects_rectangular():
 
 
 def test_partition_bad_ladder_message():
-    from of_spmm_tpu.parallel.partition import partition_rows
+    from of_spmm.parallel.partition import partition_rows
 
     with pytest.raises(ValueError, match="ladder must be"):
         partition_rows(_csr(), 4, ladder="fastest")
 
 
 def test_make_operator_unknown_layout_lists_choices():
-    from of_spmm_tpu.ops.autograd import make_operator
+    from of_spmm.ops.autograd import make_operator
 
     with pytest.raises(ValueError) as e:
         make_operator(_csr(), layout="blocked")
     msg = str(e.value)
-    for choice in ("binned", "tiered", "fused", "ranges"):
+    for choice in ("auto", "binned", "tiered"):
         assert choice in msg, msg
 
 
 def test_make_operator_unknown_reorder_lists_choices():
-    from of_spmm_tpu.ops.autograd import make_operator
+    from of_spmm.ops.autograd import make_operator
 
     with pytest.raises(ValueError, match="lp|bfs|identity"):
-        make_operator(_csr(), layout="ranges", place=False,
+        make_operator(_csr(), layout="binned", place=False,
                       reorder="metis5")
 
 
-def test_fused_plan_capacity_error_names_components():
-    from of_spmm_tpu.sparse.fused import build_fused_plan
-
-    with pytest.raises(CapacityError) as e:
-        build_fused_plan(_csr(256, 0.1, seed=3), hbm_limit=1 << 14)
-    msg = str(e.value)
-    assert "HBM" in msg and "budget" in msg
-    # remediation guidance present (reference error-UX style:
-    # oneflow/core/common/maybe.h error frames carry actionable text)
-    assert "Reduce" in msg or "staging" in msg
-
-
-def test_fused_bad_staging_mode():
-    from of_spmm_tpu.sparse.fused import build_fused_plan
-
-    with pytest.raises(ValueError, match="rows|chunks"):
-        build_fused_plan(_csr(), staging="streams")
-
-
-def test_ranges_rank1_forced_but_not_factorable():
-    from of_spmm_tpu.sparse.ranges import build_ranges_plan
-
-    with pytest.raises(ValueError, match="factor"):
-        build_ranges_plan(_csr(seed=5), rank1=True)
-
-
 def test_mesh_shard_mismatch_names_counts():
-    from of_spmm_tpu.parallel.dist_spmm import dist_spmm
-    from of_spmm_tpu.parallel.partition import partition_rows
+    from of_spmm.parallel.dist_spmm import dist_spmm
+    from of_spmm.parallel.partition import partition_rows
 
     plan = partition_rows(_csr(), 8)
     x = jnp.ones((64, 8), jnp.float32)

@@ -11,14 +11,14 @@ import pytest
 
 
 def test_encode_example_rejects_unsupported_type():
-    from of_spmm_tpu.data.records import encode_example
+    from of_spmm.data.records import encode_example
 
     with pytest.raises(TypeError):
         encode_example({"x": object()})
 
 
 def test_coo_out_of_range_rows():
-    from of_spmm_tpu.sparse.formats import COO
+    from of_spmm.sparse.formats import COO
 
     coo = COO(rows=np.asarray([0, 5]), cols=np.asarray([0, 1]),
               vals=np.ones(2, np.float32), shape=(2, 2))
@@ -27,7 +27,7 @@ def test_coo_out_of_range_rows():
 
 
 def test_csr_indptr_must_start_at_zero():
-    from of_spmm_tpu.sparse.formats import CSR
+    from of_spmm.sparse.formats import CSR
 
     with pytest.raises(ValueError, match="start at 0"):
         CSR(indptr=np.asarray([1, 1, 1, 1]), cols=np.asarray([0]),
@@ -35,7 +35,7 @@ def test_csr_indptr_must_start_at_zero():
 
 
 def test_csr_indptr_decreasing():
-    from of_spmm_tpu.sparse.formats import CSR
+    from of_spmm.sparse.formats import CSR
 
     with pytest.raises(ValueError, match="non-decreasing"):
         CSR(indptr=np.asarray([0, 2, 1, 2]), cols=np.asarray([0, 1]),
@@ -43,7 +43,7 @@ def test_csr_indptr_decreasing():
 
 
 def test_from_dense_requires_2d():
-    from of_spmm_tpu.sparse.formats import COO
+    from of_spmm.sparse.formats import COO
 
     with pytest.raises(ValueError, match="2-D"):
         COO.from_dense(np.ones((2, 2, 2), np.float32))
@@ -53,7 +53,7 @@ def test_from_dense_requires_2d():
 
 
 def test_registry_unknown_op_lists_known():
-    from of_spmm_tpu.ops.registry import lookup
+    from of_spmm.ops.registry import lookup
 
     with pytest.raises(KeyError) as ei:
         lookup("not-an-op")
@@ -61,22 +61,22 @@ def test_registry_unknown_op_lists_known():
 
 
 def test_registry_double_register():
-    from of_spmm_tpu.ops import registry
+    from of_spmm.ops import registry
 
     with pytest.raises(ValueError, match="already registered"):
         registry.register_op("spmm", oracle=lambda: None, impls={})
 
 
 def test_spmm_expects_sparse_type():
-    from of_spmm_tpu.ops.reference import spmm
+    from of_spmm.ops.reference import spmm
 
     with pytest.raises(TypeError, match="COO/CSR"):
         spmm(np.eye(3), np.ones((3, 2)))
 
 
 def test_relabel_needs_square():
-    from of_spmm_tpu.ops.autograd import make_operator
-    from of_spmm_tpu.sparse.formats import CSR
+    from of_spmm.ops.autograd import make_operator
+    from of_spmm.sparse.formats import CSR
 
     a = CSR.from_dense(np.ones((2, 3), np.float32))
     with pytest.raises(ValueError, match="square"):
@@ -87,7 +87,7 @@ def test_relabel_needs_square():
 
 
 def test_attention_head_divisibility():
-    from of_spmm_tpu.nn import MultiheadAttention
+    from of_spmm.nn import MultiheadAttention
 
     with pytest.raises(ValueError, match="embed_dim"):
         MultiheadAttention(embed_dim=10, num_heads=3)
@@ -96,7 +96,7 @@ def test_attention_head_divisibility():
 def test_groupnorm_divisibility():
     import jax
 
-    from of_spmm_tpu import nn
+    from of_spmm import nn
 
     with pytest.raises(ValueError, match="divide"):
         nn.GroupNorm(num_groups=3, num_channels=8)
@@ -105,7 +105,7 @@ def test_groupnorm_divisibility():
 def test_interpolate_requires_size_or_scale():
     import jax.numpy as jnp
 
-    from of_spmm_tpu.nn.extras import interpolate
+    from of_spmm.nn.extras import interpolate
 
     with pytest.raises(ValueError, match="size/scale_factor"):
         interpolate(jnp.ones((1, 1, 4, 4)))
@@ -114,7 +114,7 @@ def test_interpolate_requires_size_or_scale():
 def test_interpolate_unsupported_mode():
     import jax.numpy as jnp
 
-    from of_spmm_tpu.nn.extras import interpolate
+    from of_spmm.nn.extras import interpolate
 
     with pytest.raises(ValueError, match="unsupported mode"):
         interpolate(jnp.ones((1, 1, 4, 4)), scale_factor=2, mode="bicubic")
@@ -123,7 +123,7 @@ def test_interpolate_unsupported_mode():
 def test_pixel_shuffle_divisibility():
     import jax.numpy as jnp
 
-    from of_spmm_tpu.nn.extras import pixel_shuffle
+    from of_spmm.nn.extras import pixel_shuffle
 
     with pytest.raises(ValueError, match="divisible"):
         pixel_shuffle(jnp.ones((1, 3, 4, 4)), 2)
@@ -132,7 +132,7 @@ def test_pixel_shuffle_divisibility():
 def test_flash_attention_mask_restriction():
     import jax
 
-    from of_spmm_tpu.nn import MultiheadAttention
+    from of_spmm.nn import MultiheadAttention
 
     m = MultiheadAttention(embed_dim=16, num_heads=2, flash=True)
     p = m.init(jax.random.key(0))
@@ -146,32 +146,12 @@ def test_flash_attention_mask_restriction():
 
 
 def test_binned_bad_ladder():
-    from of_spmm_tpu.sparse.binned import bin_rows
-    from of_spmm_tpu.sparse.formats import CSR
+    from of_spmm.sparse.binned import bin_rows
+    from of_spmm.sparse.formats import CSR
 
     a = CSR.from_dense(np.eye(4, dtype=np.float32))
     with pytest.raises(ValueError, match="ladder"):
         bin_rows(a, ladder="fibonacci")
-
-
-def test_expansion_tile_multiple():
-    from of_spmm_tpu.sparse.expansion import build_expansion_plan
-    from of_spmm_tpu.sparse.formats import CSR
-
-    a = CSR.from_dense(np.eye(256, dtype=np.float32))
-    with pytest.raises(ValueError, match="multiple"):
-        build_expansion_plan(a, TILE=100)
-
-
-def test_expansion2_rank1_forced_but_not_factorable():
-    from of_spmm_tpu.sparse.expansion2 import build_expansion2_plan
-    from of_spmm_tpu.sparse.formats import CSR
-
-    rng = np.random.default_rng(0)
-    dense = (rng.random((8, 8)) < 0.5).astype(np.float32)
-    dense *= rng.random((8, 8)).astype(np.float32)  # not rank-1
-    with pytest.raises(ValueError, match="rank1"):
-        build_expansion2_plan(CSR.from_dense(dense), rank1=True)
 
 
 # --- distribution -----------------------------------------------------------
@@ -181,9 +161,9 @@ def test_dist_spmm_shard_count_mismatch():
     import jax
     from jax.sharding import Mesh
 
-    from of_spmm_tpu.models.gcn import normalized_adjacency
-    from of_spmm_tpu.parallel import dist_spmm, partition_rows
-    from of_spmm_tpu.sparse.formats import CSR
+    from of_spmm.models.gcn import normalized_adjacency
+    from of_spmm.parallel import dist_spmm, partition_rows
+    from of_spmm.sparse.formats import CSR
 
     rng = np.random.default_rng(0)
     a = CSR.from_dense((rng.random((32, 32)) < 0.2).astype(np.float32))
@@ -198,7 +178,7 @@ def test_tp_requires_divisible_width():
     import jax
     from jax.sharding import Mesh
 
-    from of_spmm_tpu.parallel.tp import init_tp_mlp, shard_tp_mlp
+    from of_spmm.parallel.tp import init_tp_mlp, shard_tp_mlp
 
     mesh = Mesh(np.asarray(jax.devices()), ("tp",))
     params = init_tp_mlp(jax.random.key(0), 4, 10)
@@ -207,8 +187,8 @@ def test_tp_requires_divisible_width():
 
 
 def test_auto_sharding_unknown_rules():
-    from of_spmm_tpu.ops.registry import OpDef
-    from of_spmm_tpu.parallel.auto_sharding import choose_signature
+    from of_spmm.ops.registry import OpDef
+    from of_spmm.parallel.auto_sharding import choose_signature
 
     op = OpDef(name="mystery", oracle=None, impls={}, sharding_rules=())
     with pytest.raises(ValueError, match="sharding rules"):
@@ -219,7 +199,7 @@ def test_auto_sharding_unknown_rules():
 
 
 def test_record_reader_rejects_corrupt_crc(tmp_path):
-    from of_spmm_tpu.data.records import RecordWriter, read_records
+    from of_spmm.data.records import RecordWriter, read_records
 
     path = tmp_path / "r.rec"
     with RecordWriter(str(path)) as w:
@@ -232,7 +212,7 @@ def test_record_reader_rejects_corrupt_crc(tmp_path):
 
 
 def test_dataset_batch_nonpositive():
-    from of_spmm_tpu.data.dataset import DataLoader, TensorDataset
+    from of_spmm.data.dataset import DataLoader, TensorDataset
 
     ds = TensorDataset(np.arange(10))
     with pytest.raises(ValueError, match="batch_size"):
@@ -240,7 +220,7 @@ def test_dataset_batch_nonpositive():
 
 
 def test_tensor_dataset_leading_dim_mismatch():
-    from of_spmm_tpu.data.dataset import TensorDataset
+    from of_spmm.data.dataset import TensorDataset
 
     with pytest.raises(ValueError, match="leading dim"):
         TensorDataset(np.arange(4), np.arange(5))

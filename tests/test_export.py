@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from of_spmm_tpu import nn
-from of_spmm_tpu.export import (
+from of_spmm import nn
+from of_spmm.export import (
     export_model,
     export_stablehlo_text,
     ir_stats,
@@ -35,9 +35,9 @@ def test_export_load_roundtrip(tmp_path):
 
 def test_export_gcn_model(tmp_path):
     """The flagship model exports (spmm plan baked in as constants)."""
-    from of_spmm_tpu.models import GCN, normalized_adjacency
-    from of_spmm_tpu.ops.autograd import make_operator
-    from of_spmm_tpu.sparse.formats import CSR
+    from of_spmm.models import GCN, normalized_adjacency
+    from of_spmm.ops.autograd import make_operator
+    from of_spmm.sparse.formats import CSR
 
     rng = np.random.default_rng(0)
     n = 24

@@ -1,12 +1,12 @@
-"""Flash attention kernel vs the XLA attention oracle."""
+"""Fused attention route (jax.nn.dot_product_attention) vs the XLA
+attention oracle."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from of_spmm_tpu.nn.attention import scaled_dot_product_attention
-from of_spmm_tpu.ops.pallas.flash_attention import flash_attention
+from of_spmm.nn.attention import flash_attention, scaled_dot_product_attention
 
 
 def _qkv(B, H, T, d, seed=0):
@@ -17,21 +17,18 @@ def _qkv(B, H, T, d, seed=0):
 @pytest.mark.parametrize("is_causal", [False, True])
 @pytest.mark.parametrize("T", [128, 384])
 def test_flash_matches_oracle(is_causal, T):
-    q, k, v = _qkv(2, 3, T, 128)
-    got = flash_attention(q, k, v, is_causal=is_causal, block_q=128,
-                          block_k=128, interpret=True)
+    q, k, v = _qkv(2, 3, T, 64)
+    got = flash_attention(q, k, v, is_causal=is_causal)
     want = scaled_dot_product_attention(q, k, v, is_causal=is_causal)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=2e-5, atol=2e-5)
 
 
 def test_flash_grads_match_oracle():
-    q, k, v = _qkv(1, 2, 128, 128, seed=1)
+    q, k, v = _qkv(1, 2, 128, 64, seed=1)
 
     def loss_flash(q, k, v):
-        return jnp.sum(flash_attention(q, k, v, is_causal=True,
-                                       block_q=128, block_k=128,
-                                       interpret=True) ** 2)
+        return jnp.sum(flash_attention(q, k, v, is_causal=True) ** 2)
 
     def loss_ref(q, k, v):
         return jnp.sum(scaled_dot_product_attention(
@@ -45,13 +42,17 @@ def test_flash_grads_match_oracle():
 
 
 def test_flash_rejects_ragged_blocks():
-    q, k, v = _qkv(1, 1, 100, 128)
-    with pytest.raises(ValueError, match="divisible"):
-        flash_attention(q, k, v, block_q=64, block_k=64, interpret=True)
+    """The fused route has no block constraint: a sequence length that no
+    power-of-two block divides runs and matches the oracle."""
+    q, k, v = _qkv(1, 1, 100, 64)
+    got = flash_attention(q, k, v, is_causal=True)
+    want = scaled_dot_product_attention(q, k, v, is_causal=True)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
 
 
 def test_mha_flash_flag_matches_dense():
-    from of_spmm_tpu.nn.attention import MultiheadAttention
+    from of_spmm.nn.attention import MultiheadAttention
 
     E, H, B, T = 32, 4, 2, 128
     dense = MultiheadAttention(E, H)

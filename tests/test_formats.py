@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from of_spmm_tpu.sparse.binned import bin_rows
-from of_spmm_tpu.sparse.formats import COO, CSR
+from of_spmm.sparse.binned import bin_rows
+from of_spmm.sparse.formats import COO, CSR
 
 
 def _random_dense(n, m, density, seed=0):

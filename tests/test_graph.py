@@ -6,8 +6,8 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from of_spmm_tpu import amp, nn, optim
-from of_spmm_tpu.graph import EvalGraph, GraphConfig, TrainGraph, train_graph
+from of_spmm import amp, nn, optim
+from of_spmm.graph import EvalGraph, GraphConfig, TrainGraph, train_graph
 
 
 def _mlp_and_data(seed=0, n=32):
@@ -161,8 +161,8 @@ def test_train_graph_checkpoint_resume(tmp_path):
     import jax.numpy as jnp
     import numpy as np
 
-    from of_spmm_tpu import nn, optim
-    from of_spmm_tpu.graph import GraphConfig, TrainGraph
+    from of_spmm import nn, optim
+    from of_spmm.graph import GraphConfig, TrainGraph
 
     model = nn.Linear(6, 3)
     params = model.init(jax.random.key(0))

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from of_spmm_tpu.optim.indexed_slices import (
+from of_spmm.optim.indexed_slices import (
     IndexedSlices,
     reduce_ids,
     sparse_adam_update,

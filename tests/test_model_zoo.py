@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from of_spmm_tpu.models import ResNet, bert_tiny
+from of_spmm.models import ResNet, bert_tiny
 
 
 def test_resnet_tiny_forward_backward():
@@ -64,7 +64,7 @@ def test_bert_hidden_states():
 
 
 def test_vgg16_alexnet_forward():
-    from of_spmm_tpu.models import alexnet, vgg16
+    from of_spmm.models import alexnet, vgg16
 
     x = jnp.asarray(np.random.default_rng(0).standard_normal(
         (1, 3, 224, 224)).astype(np.float32))

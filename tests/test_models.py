@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from of_spmm_tpu.models import GCN, Embedding, GraphSAGE, mean_adjacency, normalized_adjacency
-from of_spmm_tpu.ops.autograd import make_operator
-from of_spmm_tpu.sparse.formats import CSR
+from of_spmm.models import GCN, Embedding, GraphSAGE, mean_adjacency, normalized_adjacency
+from of_spmm.ops.autograd import make_operator
+from of_spmm.sparse.formats import CSR
 from tests.conftest import ATOL, RTOL
 
 

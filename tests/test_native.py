@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from of_spmm_tpu import native
+from of_spmm import native
 
 
 pytestmark = pytest.mark.skipif(
@@ -64,7 +64,7 @@ def test_csr_transpose_matches_rebuild():
 
 def test_formats_use_native_consistently():
     """CSR built large enough to take the native path must equal numpy's."""
-    from of_spmm_tpu.sparse.formats import COO, CSR
+    from of_spmm.sparse.formats import COO, CSR
 
     n, nnz = 700, 1 << 19
     rows, cols, vals = _coo(n, nnz, seed=4)
@@ -83,8 +83,8 @@ def test_formats_use_native_consistently():
 def test_native_spgemm_matches_numpy():
     """Native Gustavson SPA SpGEMM == numpy expand/sort/reduce oracle."""
     import numpy as np
-    from of_spmm_tpu import native
-    from of_spmm_tpu.sparse.formats import CSR
+    from of_spmm import native
+    from of_spmm.sparse.formats import CSR
 
     if not native.available():
         import pytest

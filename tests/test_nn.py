@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from of_spmm_tpu import nn
-from of_spmm_tpu.models import normalized_adjacency
-from of_spmm_tpu.ops import make_operator, spmm
-from of_spmm_tpu.ops import reference as ref
-from of_spmm_tpu.sparse.formats import CSR
+from of_spmm import nn
+from of_spmm.models import normalized_adjacency
+from of_spmm.ops import make_operator, spmm
+from of_spmm.ops import reference as ref
+from of_spmm.sparse.formats import CSR
 
 from tests.conftest import ATOL, RTOL
 
@@ -163,7 +163,7 @@ def test_ginconv_matches_manual():
 
 
 def test_segment_softmax_normalizes():
-    from of_spmm_tpu.ops import segment_softmax
+    from of_spmm.ops import segment_softmax
 
     scores = jnp.asarray([1.0, 2.0, 3.0, -1.0, 0.5])
     ids = jnp.asarray([0, 0, 1, 1, 3])

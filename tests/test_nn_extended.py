@@ -7,7 +7,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from of_spmm_tpu import nn
+from of_spmm import nn
 
 
 def test_conv2d_matches_torch():
@@ -140,7 +140,7 @@ def test_mha_causal():
 def test_groupnorm_matches_torch():
     import torch
 
-    from of_spmm_tpu import nn as onn
+    from of_spmm import nn as onn
 
     x = np.random.default_rng(0).standard_normal((2, 8, 5, 5)).astype(np.float32)
     m = onn.GroupNorm(4, 8)
@@ -154,7 +154,7 @@ def test_groupnorm_matches_torch():
 def test_instancenorm_matches_torch():
     import torch
 
-    from of_spmm_tpu import nn as onn
+    from of_spmm import nn as onn
 
     x = np.random.default_rng(1).standard_normal((2, 6, 7, 7)).astype(np.float32)
     m = onn.InstanceNorm2d(6)
@@ -168,7 +168,7 @@ def test_instancenorm_matches_torch():
 def test_convtranspose2d_matches_torch(stride, padding):
     import torch
 
-    from of_spmm_tpu import nn as onn
+    from of_spmm import nn as onn
 
     x = np.random.default_rng(2).standard_normal((2, 3, 9, 9)).astype(np.float32)
     m = onn.ConvTranspose2d(3, 5, 4, stride=stride, padding=padding)

@@ -7,8 +7,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from of_spmm_tpu.nn import extras as X
-from of_spmm_tpu.testing.autotest import assert_close
+from of_spmm.nn import extras as X
+from of_spmm.testing.autotest import assert_close
 
 
 def _rand(*shape, seed=0):

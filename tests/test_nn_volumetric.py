@@ -8,9 +8,9 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from of_spmm_tpu import nn
-from of_spmm_tpu.nn import volumetric as V
-from of_spmm_tpu.testing.autotest import assert_close
+from of_spmm import nn
+from of_spmm.nn import volumetric as V
+from of_spmm.testing.autotest import assert_close
 
 
 def _rand(*shape, seed=0):

@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from of_spmm_tpu.embedding import CachedEmbedding, MultiTableEmbedding, PersistentTable
+from of_spmm.embedding import CachedEmbedding, MultiTableEmbedding, PersistentTable
 
 
 def test_persistent_table_init_get_put(tmp_path):

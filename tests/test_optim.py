@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from of_spmm_tpu import optim
+from of_spmm import optim
 
 
 def _params():
@@ -113,7 +113,7 @@ def test_schedules_shapes_and_values():
 
 def test_training_loop_converges():
     """End-to-end: nn MLP + adam learns XOR-ish separation."""
-    from of_spmm_tpu import nn
+    from of_spmm import nn
 
     model = nn.Sequential(nn.Linear(2, 16), nn.tanh, nn.Linear(16, 1))
     params = model.init(jax.random.key(0))

@@ -1,15 +1,17 @@
-"""Pallas kernel vs XLA oracle (interpret mode on CPU; hardware runs via
-bench.py). Tolerance = the reference's check_equality bar."""
+"""Pallas kernel vs XLA oracle (interpret mode on CPU; compiled on the GPU
+by chip_smoke.py and the ``gpu``-marked test below). Tolerance = the
+reference's check_equality bar."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from of_spmm_tpu.ops import reference as ref
-from of_spmm_tpu.ops.pallas.spmm import spmm_pallas
-from of_spmm_tpu.sparse.binned import bin_rows
-from of_spmm_tpu.sparse.formats import CSR
-from tests.conftest import ATOL, RTOL
+from of_spmm.ops import reference as ref
+from of_spmm.ops.pallas.spmm import spmm_pallas
+from of_spmm.sparse.binned import bin_rows
+from of_spmm.sparse.formats import CSR
+from conftest import ATOL, RTOL
+from test_spmm_grid import DTYPES, SHAPES, WIDTHS, check, graph
 
 
 def _case(n, m, density, seed=0, heavy_rows=()):
@@ -68,3 +70,26 @@ def test_pallas_bf16_features():
     np.testing.assert_allclose(
         np.asarray(got, dtype=np.float32), dense @ x, rtol=0.05, atol=0.1
     )
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_pallas_kernel_matches_float64(shape, d, dtype):
+    """The Triton-route kernel (interpret mode here) over the same grid as
+    the XLA layouts in test_spmm_grid.py."""
+    check(graph(shape), "binned", "pallas", d, dtype)
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_xla_on_gpu():
+    """The kernel as Triton compiles it (no interpreter) — runs only with
+    a GPU (OFS_TEST_ON_GPU=1); chip_smoke.py covers it at full width."""
+    dense = graph("powerlaw")
+    binned = bin_rows(CSR.from_dense(dense))
+    x = jnp.asarray(np.random.default_rng(0).standard_normal((96, 128)),
+                    jnp.float32)
+    got = spmm_pallas(binned, x, interpret=False)
+    want = ref.spmm_binned_xla(binned, x)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=RTOL, atol=ATOL)

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from of_spmm_tpu.parallel.partition import partition_rows
-from of_spmm_tpu.sparse.formats import CSR
+from of_spmm.parallel.partition import partition_rows
+from of_spmm.sparse.formats import CSR
 
 
 def _random_dense(n, m, density, seed=0):

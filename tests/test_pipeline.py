@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from of_spmm_tpu import nn
-from of_spmm_tpu.parallel.pipeline import (
+from of_spmm import nn
+from of_spmm.parallel.pipeline import (
     PipelineModule,
     pipeline_apply,
     stack_stage_params,

@@ -16,8 +16,8 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from of_spmm_tpu import nn
-from of_spmm_tpu.parallel.pipeline import (
+from of_spmm import nn
+from of_spmm.parallel.pipeline import (
     _bwd_mb,
     _fwd_mb,
     pipeline_train_step_1f1b,
@@ -122,7 +122,7 @@ def test_1f1b_stash_is_static_n_stages():
     O(stages), not O(n_micro) (pipeline_buffer_pass.cpp semantics)."""
     import inspect
 
-    from of_spmm_tpu.parallel.pipeline import train_step_1f1b
+    from of_spmm.parallel.pipeline import train_step_1f1b
 
     src = inspect.getsource(train_step_1f1b)
     assert "stash=jnp.zeros((2 * S,)" in src

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from of_spmm_tpu.data import (
+from of_spmm.data import (
     DataLoader, RecordDataset, RecordWriter, decode_example, encode_example,
     read_records,
 )

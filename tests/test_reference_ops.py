@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from of_spmm_tpu.ops import reference as ref
-from of_spmm_tpu.sparse.binned import bin_rows
-from of_spmm_tpu.sparse.formats import COO, CSR
+from of_spmm.ops import reference as ref
+from of_spmm.sparse.binned import bin_rows
+from of_spmm.sparse.formats import COO, CSR
 from tests.conftest import ATOL, RTOL
 
 

@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from of_spmm_tpu.models import GCN, normalized_adjacency
-from of_spmm_tpu.ops import autograd as ag
-from of_spmm_tpu.sparse.binned import bin_rows_relabeled
-from of_spmm_tpu.sparse.formats import CSR
-from of_spmm_tpu.ops import reference as ref
+from of_spmm.models import GCN, normalized_adjacency
+from of_spmm.ops import autograd as ag
+from of_spmm.sparse.binned import bin_rows_relabeled
+from of_spmm.sparse.formats import CSR
+from of_spmm.ops import reference as ref
 from tests.conftest import ATOL, RTOL
 
 

@@ -1,12 +1,12 @@
 """Locality reordering (sparse/reorder.py): BFS relabel recovers band
-structure a random id shuffle destroys, and the ranges engine stays exact
-through the operator's to_internal/from_internal boundary."""
+structure a random id shuffle destroys, and the binned and tiered layouts
+stay exact through the operator's to_internal/from_internal boundary."""
 
 import numpy as np
 import pytest
 
-from of_spmm_tpu.sparse.formats import COO, CSR
-from of_spmm_tpu.sparse.reorder import (
+from of_spmm.sparse.formats import COO, CSR
+from of_spmm.sparse.reorder import (
     bfs_order, locality_stats, reorder_locality)
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -36,9 +36,8 @@ def test_bfs_order_is_permutation():
 
 def test_reorder_recovers_band_coverage():
     """A shuffled SBM has poor band coverage; label-propagation relabel
-    (the default) restores nearly all of the unshuffled layout's coverage
-    — the ranges-engine win. BFS is kept as a cheaper fallback and must
-    at least not hurt."""
+    (the default) restores nearly all of the unshuffled layout's coverage.
+    BFS is kept as a cheaper fallback and must at least not hurt."""
     dense_c, csr_c = _clustered_graph(seed=2, shuffle=False)
     dense_s, csr_s = _clustered_graph(seed=2, shuffle=True)
     w = 128
@@ -70,12 +69,12 @@ def test_reorder_preserves_spmm_semantics():
                                atol=ATOL * np.abs(dense @ x).max() + ATOL)
 
 
-@pytest.mark.parametrize("layout", ["ranges", "fused"])
+@pytest.mark.parametrize("layout", ["binned", "tiered"])
 def test_operator_with_reorder_matches_dense(layout):
     import jax
     import jax.numpy as jnp
 
-    from of_spmm_tpu.ops.autograd import make_operator, spmm
+    from of_spmm.ops.autograd import make_operator, spmm
 
     dense, csr = _clustered_graph(n=640, seed=5)
     op = make_operator(csr, layout=layout, place=False, reorder="bfs")
@@ -104,7 +103,7 @@ def test_matching_order_is_permutation_and_recovers():
     valid permutation and recovers most of the planted band coverage a
     shuffle destroys (native hem_order when the toolchain is present,
     numpy fallback otherwise)."""
-    from of_spmm_tpu.sparse.reorder import matching_order
+    from of_spmm.sparse.reorder import matching_order
 
     dense, csr = _clustered_graph(n=1024, seed=21)
     order = matching_order(csr, coarse_n=64)
@@ -121,8 +120,8 @@ def test_matching_order_is_permutation_and_recovers():
 def test_matching_numpy_fallback_matches_contract():
     """The numpy fallback path (native unavailable) is also a valid
     permutation (qualities differ; the contract is correctness)."""
-    import of_spmm_tpu.native as native
-    from of_spmm_tpu.sparse.reorder import matching_order
+    import of_spmm.native as native
+    from of_spmm.sparse.reorder import matching_order
 
     _, csr = _clustered_graph(n=512, seed=23)
     real = native.hem_order
@@ -136,11 +135,11 @@ def test_matching_numpy_fallback_matches_contract():
 
 def test_reorder_match_through_operator():
     """make_operator(reorder="match") keeps exactness through the
-    relabel boundary on the panels layout (the r4 --shuffled path)."""
+    relabel boundary on the binned layout (bench.py --shuffled)."""
     import jax
     import jax.numpy as jnp
 
-    from of_spmm_tpu.ops.autograd import make_operator, spmm
+    from of_spmm.ops.autograd import make_operator, spmm
 
     rng = np.random.default_rng(31)
     n = 640
@@ -150,7 +149,7 @@ def test_reorder_match_through_operator():
         s = np.where(dr > 0, dr ** -0.5, 0.0).astype(np.float32)
     dense = dense * s[:, None] * s[None, :]
     csr = CSR.from_dense(dense)
-    op = make_operator(csr, layout="panels", place=False, reorder="match")
+    op = make_operator(csr, layout="binned", place=False, reorder="match")
     x = rng.standard_normal((n, 8)).astype(np.float32)
     y = spmm(op, jnp.asarray(x))
     np.testing.assert_allclose(np.asarray(y), dense @ x, rtol=RTOL,

@@ -6,8 +6,8 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from of_spmm_tpu.nn.attention import MultiheadAttention
-from of_spmm_tpu.parallel import RingAttention
+from of_spmm.nn.attention import MultiheadAttention
+from of_spmm.parallel import RingAttention
 
 
 def _mesh(n, name="ring"):

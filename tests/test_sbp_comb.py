@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from of_spmm_tpu.parallel import reshard, sbp_of, to_global, to_local
+from of_spmm.parallel import reshard, sbp_of, to_global, to_local
 
 ATOMS_1D = ["S0", "S1", "B"]
 

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from of_spmm_tpu.models.sharded_embedding import ShardedEmbedding
+from of_spmm.models.sharded_embedding import ShardedEmbedding
 
 
 def test_forward_matches_dense_lookup(mesh8):

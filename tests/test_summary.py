@@ -1,6 +1,6 @@
 """SummaryWriter round-trip."""
 
-from of_spmm_tpu.utils.summary import SummaryWriter, read_events
+from of_spmm.utils.summary import SummaryWriter, read_events
 
 
 def test_summary_roundtrip(tmp_path):

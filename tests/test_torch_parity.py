@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from of_spmm_tpu import nn
-from of_spmm_tpu.testing import (
+from of_spmm import nn
+from of_spmm.testing import (
     autotest,
     check_grads_against_torch,
     check_module_against_torch,
@@ -127,7 +127,7 @@ def test_avgpool2d():
 def test_gather_vs_index_select():
     """gather forward + segment-sum backward vs torch.index_select autograd
     (the reference pairing, gradient_funcs/gather.cpp:62-73)."""
-    from of_spmm_tpu.ops.autograd import gather
+    from of_spmm.ops.autograd import gather
 
     rng = np.random.default_rng(0)
     params = rng.standard_normal((30, 8)).astype(np.float32)
@@ -140,7 +140,7 @@ def test_gather_vs_index_select():
 
 
 def test_segment_sum_vs_index_add():
-    from of_spmm_tpu.ops.autograd import segment_sum
+    from of_spmm.ops.autograd import segment_sum
 
     rng = np.random.default_rng(1)
     data = rng.standard_normal((50, 8)).astype(np.float32)
@@ -157,8 +157,8 @@ def test_segment_sum_vs_index_add():
 
 def test_spmm_vs_torch_sparse_mm():
     """The flagship op against torch.sparse autograd."""
-    from of_spmm_tpu.ops.autograd import make_operator, spmm
-    from of_spmm_tpu.sparse.formats import CSR
+    from of_spmm.ops.autograd import make_operator, spmm
+    from of_spmm.sparse.formats import CSR
 
     rng = np.random.default_rng(2)
     n, d = 40, 8

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from of_spmm_tpu.parallel import init_tp_mlp, make_tp_mlp, shard_tp_mlp, tp_mlp_block
+from of_spmm.parallel import init_tp_mlp, make_tp_mlp, shard_tp_mlp, tp_mlp_block
 
 
 def _ref(params, x, act=jax.nn.gelu):

@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from of_spmm_tpu.data.graphs import NAMED_CONFIGS, load_graph, synthetic_edges
-from of_spmm_tpu.ops.registry import all_ops, lookup
-from of_spmm_tpu.utils.checkpoint import load_checkpoint, save_checkpoint
-from of_spmm_tpu.utils.config import FLAGS, FlagRegistry
-from of_spmm_tpu.utils.roofline import SpmmTraffic, spmm_report, time_fn
+from of_spmm.data.graphs import NAMED_CONFIGS, load_graph, synthetic_edges
+from of_spmm.ops.registry import all_ops, lookup
+from of_spmm.utils.checkpoint import load_checkpoint, save_checkpoint
+from of_spmm.utils.config import FLAGS, FlagRegistry
+from of_spmm.utils.roofline import SpmmTraffic, spmm_report, time_fn
 
 
 def test_flag_defaults_and_overrides():
@@ -104,8 +104,8 @@ def test_autoprof_table():
     """autoprof times ours-vs-torch and renders the comparison table."""
     import numpy as np
 
-    from of_spmm_tpu import nn
-    from of_spmm_tpu.autoprof import profile_module, table
+    from of_spmm import nn
+    from of_spmm.autoprof import profile_module, table
 
     x = np.random.default_rng(0).standard_normal((8, 16)).astype(np.float32)
     row = profile_module(nn.Linear(16, 8), (x,), iters=3, warmup=1)
@@ -118,7 +118,7 @@ def test_autoprof_table():
 def test_memory_analysis_reports_bytes():
     import jax.numpy as jnp
 
-    from of_spmm_tpu.utils.profiler import memory_analysis
+    from of_spmm.utils.profiler import memory_analysis
 
     def f(x):
         return (x @ x.T).sum()

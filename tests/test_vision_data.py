@@ -6,12 +6,12 @@ import os
 import numpy as np
 import pytest
 
-from of_spmm_tpu.data import (
+from of_spmm.data import (
     CenterCrop, CocoDetection, Compose, DataLoader, ImageFolder, Normalize,
     RandomHorizontalFlip, RandomResizedCrop, Resize, decode_image,
     detection_collate,
 )
-from of_spmm_tpu.data.vision import HAVE_PIL, _resize_bilinear_np
+from of_spmm.data.vision import HAVE_PIL, _resize_bilinear_np
 
 
 def _write_png(path, h=32, w=48, color=(255, 0, 0)):

@@ -2,8 +2,11 @@
 
 The reference gates PRs on latency regressions
 (ci/test/test_speed_multi_client.sh:29-43: ResNet50 eager/DDP thresholds);
-this is the same pattern for the TPU build's headline kernels. Thresholds
-live in a JSON file so they ratchet with the hardware in use.
+this is the same pattern for the headline SpMM kernels. Thresholds
+live in a JSON file so they ratchet with the hardware in use; a gate that
+is missing is recorded by its first run on the GPU. Each bench.py runs in
+its own process, strictly one after another, so only one process holds
+the card at a time.
 
     python tools/speed_gate.py                 # gates.json next to this file
     python tools/speed_gate.py --gates my.json --update   # (re)record
@@ -51,19 +54,16 @@ def main():
                     help="record current numbers as the new gates")
     args = ap.parse_args()
 
-    # >= 5 gated configs including the HEADLINE engine/graph (VERDICT r2
-    # item 3: a speed gate that does not gate the flagship is decoration —
-    # the round-2 regression sailed through a 2-entry stale gate file).
+    # the headline kernel on every graph size, plus the plain XLA path
     configs = [
         ("cora", "auto", "xla"),
-        ("ogbn-arxiv", "panels", "pallas"),
-        ("ogbn-arxiv", "ranges", "pallas"),
-        ("products-small", "panels", "pallas"),
-        ("products-small", "ranges", "pallas"),
-        ("reddit-small", "panels", "pallas"),
-        ("reddit", "panels", "pallas"),
-        ("ogbn-products", "panels", "pallas"),
-        ("ogbn-products", "ranges", "pallas"),
+        ("cora", "auto", "pallas"),
+        ("ogbn-arxiv", "auto", "pallas"),
+        ("products-small", "auto", "pallas"),
+        ("reddit-small", "auto", "pallas"),
+        ("reddit", "auto", "pallas"),
+        ("ogbn-products", "auto", "pallas"),
+        ("ogbn-products", "auto", "xla"),
     ]
     if os.path.exists(args.gates):
         with open(args.gates) as f:
